@@ -1,22 +1,20 @@
-"""Cold-compile budget of the outer-tile executable set (VERDICT r4 task 9).
+"""Cold-compile budget of the engine's executable set.
 
 The reference compiles ONCE, at build time (`/root/reference/CMakeLists.txt`);
-this framework compiles per dispatch shape at first run, amortized by the
-persistent XLA cache (`SEQALIGN_TPU_CACHE`).  Round 3 measured 30-40 min of
-first-ever compiles inside the 50k run under the old width-stacked linear
-schedule.  This harness measures the NEW outer-tile schedule's budget
-directly, without paying for a 100-minute alignment around it:
+this framework compiles one executable per dispatch shape at first run,
+amortized by JAX's persistent compilation cache.  This harness measures
+that budget directly, without paying for the alignment around it:
 
-1. **Capture** — run the real engine over the real 50k-scale DNA mix
-   (`scale_run.make_dna`, same rng) on the CPU backend with the two dispatch
-   entry points (`_score_tiles`, `_score_stack`) stubbed to record their
+1. **Capture** — run the real engine over the 50k-scale DNA mix
+   (`scale_run.make_dna`, same rng) on the CPU backend, with the engine's
+   scorer set to the one the target platform uses ("kernel" for a GPU) and
+   the dispatch entry point (`_score_stack`) stubbed to record its
    (static-key, arg-shape) signatures and return zeros.  This enumerates the
-   EXACT executable set a cold 50k run compiles — tile groups, pow2 tails,
-   diagonal-remainder per-pair dispatches, merged buckets and all.
-2. **Compile** — on the real TPU backend, `.lower().compile()` each unique
+   EXACT executable set a cold run compiles.
+2. **Compile** — on the default backend, `.lower().compile()` each unique
    signature once against a FRESH compilation-cache directory, timing each.
 
-Emits JSON lines; results recorded in BASELINE.md.
+Emits JSON lines.
 
 Usage: python benchmarks/cold_compile.py [--n 50000] [--max-seconds 1800]
 """
@@ -37,8 +35,10 @@ def log(**kw):
     print(json.dumps(kw), flush=True)
 
 
-def capture_keys(n: int):
+def capture_keys(n: int, kind: str):
     """Enumerate the dispatch signatures of a full n-sequence run (CPU)."""
+    import jax
+
     from benchmarks.scale_run import make_dna
     from sequencealigner_tpu import engine as eng_mod
 
@@ -47,44 +47,27 @@ def capture_keys(n: int):
 
     sigs = {}
 
-    def spec(a):
-        if a is None:  # diag mode passes lens_c/lens_k = None
-            return None
-        return (tuple(a.shape), str(a.dtype))
-
-    real_tiles = eng_mod._score_tiles
-    real_stack = eng_mod._score_stack
-
-    def stub_tiles(desc, cw, km, kl, sub_p, gaps, *, algo, Lc, Lk,
-                   int16_ok, interpret=False):
-        key = ("tiles", algo, Lc, Lk, int16_ok,
-               tuple(spec(a) for a in (desc, cw, km, kl, sub_p, gaps)))
-        sigs.setdefault(key, 0)
-        sigs[key] += 1
-        dt = np.int16 if int16_ok else np.int32
-        return np.zeros((desc.shape[0], 128, 128), dt)
-
     def stub_stack(bc, bk, lc, lk, starts, sub_p, gaps, **st):
-        key = ("stack", tuple(sorted(st.items())),
-               tuple(spec(a) for a in (bc, bk, lc, lk, starts, sub_p, gaps)))
-        sigs.setdefault(key, 0)
-        sigs[key] += 1
+        key = (tuple(sorted(st.items())), tuple(
+            (tuple(a.shape), str(a.dtype))
+            for a in (bc, bk, lc, lk, starts, sub_p, gaps)
+        ))
+        sigs[key] = sigs.get(key, 0) + 1
         dt = np.int16 if st["int16_ok"] else np.int32
-        return np.zeros((starts.shape[0] - 1, st["B"]), dt)
+        return jax.numpy.zeros((starts.shape[0] - 1, st["Wloc"]), dt)
 
-    eng_mod._score_tiles = stub_tiles
+    real_stack = eng_mod._score_stack
     eng_mod._score_stack = stub_stack
     try:
         eng = eng_mod.Engine("ga", m.matrix, (0, -10, -1),
-                             device_kind="cpu", use_pallas=True,
-                             pallas_interpret=True)
+                             mesh=eng_mod.make_mesh("cpu", 1))
+        eng.scorer = kind
         t0 = time.perf_counter()
         st = eng.align_all(ss, None, progress=False)
-        log(phase="capture", n=n, pairs=st.pairs,
+        log(phase="capture", n=n, scorer=kind, pairs=st.pairs,
             dispatches=sum(sigs.values()), unique_executables=len(sigs),
             capture_seconds=round(time.perf_counter() - t0, 1))
     finally:
-        eng_mod._score_tiles = real_tiles
         eng_mod._score_stack = real_stack
     return sigs
 
@@ -92,44 +75,40 @@ def capture_keys(n: int):
 def compile_all(sigs, max_seconds: float):
     import jax
     from sequencealigner_tpu import engine as eng_mod
+    from sequencealigner_tpu.ops import gpu_dp
 
     dev = jax.devices()[0]
     fresh = tempfile.mkdtemp(prefix="xla-cold-")
     jax.config.update("jax_compilation_cache_dir", fresh)
-    log(phase="compile_setup", backend=dev.platform, cache_dir=fresh)
+    log(phase="compile_setup", backend=dev.platform, kind=dev.device_kind,
+        cache_dir=fresh)
+    if dev.platform == "gpu":
+        log(phase="kernel_build", seconds=round(gpu_dp.ensure_registered(), 1))
 
     rows = []
     t_start = time.perf_counter()
     truncated = False
-    for key, count in sorted(sigs.items()):
-        kind = key[0]
-        if kind == "tiles":
-            _, algo, Lc, Lk, int16_ok, shapes = key
-            static = dict(algo=algo, Lc=Lc, Lk=Lk, int16_ok=int16_ok)
-            fn = eng_mod._score_tiles
-        else:
-            _, st, shapes = key
-            static = dict(st)
-            fn = eng_mod._score_stack
+    for (st, shapes), count in sorted(sigs.items()):
+        static = dict(st)
         avals = [jax.ShapeDtypeStruct(s, d) for s, d in shapes]
         t0 = time.perf_counter()
-        fn.lower(*avals, **static).compile()
+        eng_mod._score_stack.lower(*avals, **static).compile()
         dt = time.perf_counter() - t0
-        rows.append((dt, kind, static, shapes[0][0], count))
+        rows.append((dt, static, shapes[4][0][0], count))
         if time.perf_counter() - t_start > max_seconds:
             truncated = True
             break
     total = time.perf_counter() - t_start
     done = len(rows)
-    rows.sort(reverse=True)
+    rows.sort(key=lambda r: -r[0])
     log(phase="compile", executables_compiled=done,
         executables_total=len(sigs), truncated=truncated,
         total_compile_seconds=round(total, 1),
         mean_seconds=round(total / max(done, 1), 2),
-        slowest=[dict(seconds=round(dt, 1), kind=k, **{
+        slowest=[dict(seconds=round(dt, 1), **{
             kk: vv for kk, vv in st.items()
-            if kk in ("algo", "Lc", "Lk", "B", "mode")
-        }, lead_shape=list(sh)) for dt, k, st, sh, _ in rows[:6]])
+            if kk in ("kind", "algo", "Lc", "Lk", "Wloc", "mode")
+        }, stack=nblk - 1) for dt, st, nblk, _ in rows[:6]])
     if truncated and done:
         est = total / done * len(sigs)
         log(phase="estimate", projected_total_seconds=round(est, 1))
@@ -143,11 +122,10 @@ def main():
     ap.add_argument("--capture-only", action="store_true")
     args = ap.parse_args()
 
-    sigs = capture_keys(args.n)
-    by_kind = {}
-    for key in sigs:
-        by_kind[key[0]] = by_kind.get(key[0], 0) + 1
-    log(phase="key_summary", **by_kind)
+    import jax
+
+    kind = "kernel" if jax.devices()[0].platform == "gpu" else "xla"
+    sigs = capture_keys(args.n, kind)
     if args.capture_only:
         return
     compile_all(sigs, args.max_seconds)

@@ -1,5 +1,5 @@
-"""Tri->square conversion benchmark for the sorted-coordinate spill store
-(VERDICT r4 task 7): measures OutputStore.rows_sorted_window throughput.
+"""Tri->square conversion benchmark for the sorted-coordinate spill store:
+measures OutputStore.rows_sorted_window throughput.
 
 Two regimes:
   --n 1000000          sparse 2 TB memmap rehearsal (the config-5 shape this

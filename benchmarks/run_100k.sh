@@ -1,8 +1,8 @@
 #!/usr/bin/env bash
 # Config-4 at its stated scale: one COMPLETE 100k-sequence DNA DSV
 # all-vs-all (~5 G pairs) with filter, checkpointing, full HDF5 writeback,
-# and one deliberate SIGKILL/resume under the tile schedule (VERDICT r4
-# task 2).  Mirrors benchmarks/soak_resume.sh at 5x the 50k run of round 3.
+# and one deliberate SIGKILL/resume.  Mirrors benchmarks/soak_resume.sh at
+# a larger scale.
 #
 # Usage: benchmarks/run_100k.sh [dir]   (dataset at $D/dna100k.csv)
 set -uo pipefail

@@ -1,5 +1,5 @@
 #!/usr/bin/env python3
-"""Benchmark runner over the BASELINE.json configs (see BASELINE.md).
+"""Benchmark runner over the BASELINE.json configs.
 
 Prints one JSON line per config: {"config", "algo", "n", "gcups",
 "pairs_per_sec", "seconds"}.  Sizes are scaled by --scale so the suite is

@@ -1,13 +1,13 @@
 #!/usr/bin/env python3
-"""Scale validation for BASELINE configs 4 and 5 (VERDICT r1 item 3).
+"""Scale validation for BASELINE configs 4 and 5.
 
 Config 4 at its stated scale — 100k+ mixed-length DNA — exercising the REAL
 production machinery end to end:
   - deterministic similarity prefilter at n = 100k (device-reduced)
   - triangular + disk-spill OutputStore (the n^2 full matrix would be 40 GB)
   - the align path on a TRUNCATED pair slice (the full 5e9-pair space is
-    ~1.5e15 DP cells — days on one chip; sustained-rate numbers come from a
-    multi-minute slice), with fill_pairs scatter into the spill store
+    ~1.5e15 DP cells; sustained-rate numbers come from a multi-minute
+    slice), with fill_pairs scatter into the spill store
   - chunked triangular->square HDF5 conversion on a row window
 
 Config 5 rehearsal at n = 1M: schedule + store-plan + sparse spill store +
@@ -227,8 +227,8 @@ def filter_smoke_1m(nseg: int = 6):
     """n=1M filter HBM-residency proof + segment rate (weak #6 close-out):
     the WHOLE prior-row working set goes device-resident in bucketed form
     (~input bytes, not n*lmax), then nseg real segments run and the full-
-    filter time is projected.  The complete n^2 filter at 1M is hours of
-    MXU time by design (the reference's CPU filter would be days)."""
+    filter time is projected (the complete n^2 filter at 1M is long by
+    design)."""
     import time
 
     from sequencealigner_tpu import filter as flt

@@ -9,8 +9,8 @@
 #
 # IMPORTANT: kill the CLI's own PID.  Wrapping the launch in `timeout` and
 # killing `$!` kills the wrapper, orphans the aligner, and two live runs
-# then race on the output file and the TPU (observed: h5 lock failure +
-# corrupted /sequences).  Launch directly so `$!` IS the aligner.
+# then race on the output file and the device.  Launch directly so `$!` IS
+# the aligner.  Without a GPU, add -C to both runs.
 set -euo pipefail
 D=${1:-/tmp/soak}
 N=${2:-20000}

@@ -1,6 +1,6 @@
 /* Native byte-level input parsers (FASTA + quote-free DSV fast path).
  *
- * TPU-native equivalent of the reference's in-place parse/compact loops
+ * Native equivalent of the reference's in-place parse/compact loops
  * (/root/reference/src/io/source/fasta.c, dsv.c) — same cleaning and
  * validation semantics as the Python parsers in sequencealigner_tpu/io/,
  * exposed as a small C library loaded via ctypes (io/native.py).  The Python

@@ -1,7 +1,7 @@
 /* Native host-side runtime ops: result-store scatter, packed-triangular row
  * reconstruction, and bucket packing.
  *
- * TPU-native equivalents of the reference's output-fill and HDF5-conversion
+ * Native equivalents of the reference's output-fill and HDF5-conversion
  * hot loops (/root/reference/src/io/output.c:68-84, io/format/hdf5.c:148-196)
  * and of the host-side sequence packing that feeds the device.  OpenMP
  * parallel like the reference's conversion loop; loaded via ctypes

@@ -19,7 +19,7 @@ import csv
 import os
 import sys
 
-os.environ.setdefault("JAX_PLATFORMS", "cpu")  # never touch the TPU here
+os.environ.setdefault("JAX_PLATFORMS", "cpu")  # host-side checks only
 
 import h5py  # noqa: E402
 import numpy as np  # noqa: E402

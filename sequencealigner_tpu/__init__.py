@@ -1,11 +1,11 @@
-"""seqalign-tpu: TPU-native all-vs-all pairwise sequence alignment engine.
+"""seqalign-tpu: all-vs-all pairwise sequence alignment engine in JAX, with a
+CUDA DP kernel for NVIDIA Hopper GPUs.
 
 Package-level JAX configuration (must precede any tracing in submodules):
 linear pair ids and triangle tables are explicit int64 (they exceed 2^31
 beyond ~65k sequences per bucket).  Rather than enabling x64 globally —
-which makes Python scalar literals trace as 64-bit and breaks Mosaic kernel
-lowering — explicit 64-bit dtypes are simply respected while default
-promotion semantics stay 32-bit.
+which makes Python scalar literals trace as 64-bit — explicit 64-bit dtypes
+are simply respected while default promotion semantics stay 32-bit.
 """
 
 import jax as _jax

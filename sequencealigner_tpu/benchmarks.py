@@ -3,9 +3,9 @@
 Parity with the reference's benchmark UX (/root/reference/src/util/benchmark.c):
 phases input / filter / align / output, each printing "<Name>: N.NNN sec" when
 it completes, and a final "Performance Summary" with per-phase percentages,
-total, and alignments-per-second (benchmark.c:50-64).  TPU additions per
-SURVEY.md §5: a GCUPS readout (DP cell updates per second) and an optional
-jax.profiler trace.
+total, and alignments-per-second (benchmark.c:50-64).  Additions per
+SURVEY.md §5: the device the alignment ran on, a GCUPS readout (DP cell
+updates per second) and an optional jax.profiler trace.
 """
 
 from __future__ import annotations
@@ -18,13 +18,14 @@ from . import ui
 enabled = False
 _times = {"input": 0.0, "filter": 0.0, "align": 0.0, "output": 0.0}
 _names = {"input": "Input", "filter": "Filtering", "align": "Alignment", "output": "Output"}
-_extra = {"cells": 0}
+_extra = {"cells": 0, "device": ""}
 
 
 def reset() -> None:
     for k in _times:
         _times[k] = 0.0
     _extra["cells"] = 0
+    _extra["device"] = ""
 
 
 @contextmanager
@@ -46,11 +47,17 @@ def note_cells(cells: int) -> None:
     _extra["cells"] += int(cells)
 
 
+def note_device(desc: str) -> None:
+    _extra["device"] = desc
+
+
 def total_print(alignments: float) -> None:
     if not enabled:
         return
     total = sum(_times.values())
     ui.psection("Performance Summary")
+    if _extra["device"]:
+        ui.pinfo("Device: %s", _extra["device"])
     ui.pinfo("Timing breakdown:")
     for key in ("input", "filter", "align", "output"):
         if key in ("filter", "output") and _times[key] == 0.0:

@@ -7,7 +7,7 @@ required-unless-conflicted semantics, interactive prompts (suppressed by -F),
 and the reference's main() flow (src/main.c:9-37): parse/validate → header →
 configuration actions → read dataset (+filter) → prepare matrix store →
 align → flush HDF5 → benchmark summary.  -C ("no-cuda" in the reference)
-disables the TPU and runs the same XLA engine on host CPU.
+disables the GPU and runs the XLA engine on host CPU.
 """
 
 from __future__ import annotations
@@ -36,8 +36,8 @@ class Config:
     threads: int = 0
     no_device: bool = False  # -C
     no_write: bool = False  # -W
-    checkpoint: str = ""  # -k (TPU-build addition: resume by pair-block)
-    trace_dir: str = ""  # -t (TPU-build addition: jax.profiler trace)
+    checkpoint: str = ""  # -k (addition: resume by pair-block)
+    trace_dir: str = ""  # -t (addition: jax.profiler trace)
 
 
 ALGOS = {
@@ -323,13 +323,13 @@ def build_registry(cfg: Config) -> Registry:
             help="Number of HOST threads (0 = auto)\n"
                  "  Governs native host ops (parsing, store scatter, HDF5\n"
                  "  conversion); device compute parallelism comes from the\n"
-                 "  TPU mesh, not this flag",
+                 "  GPU mesh, not this flag",
             parse=parse_threads,
         )
     )
     reg.register(
         Argument(name="disable_device", opt="C", lopt="no-device",
-                 help="Disable TPU device (run the XLA engine on host CPU)")
+                 help="Disable GPU device (run the XLA engine on host CPU)")
     )
     reg.register(
         Argument(name="disable_write", opt="W", lopt="no-write",
@@ -394,6 +394,16 @@ def run(argv: list[str] | None = None) -> int:
         ui.pinfo("Use %s -h, --help for usage information", prog)
         return 1
 
+    if not cfg.no_write:
+        # The HDF5 writer's dependency is needed only after the alignment:
+        # check it now rather than fail once the work is done.
+        try:
+            import h5py  # noqa: F401
+        except ImportError:
+            ui.perr("Writing HDF5 output (-o) needs the h5py package; "
+                    "install it or run with -W")
+            return 1
+
     system.set_threads(cfg.threads)
 
     ui.pheader("SEQUENCE ALIGNER")
@@ -454,20 +464,28 @@ def run(argv: list[str] | None = None) -> int:
             store = OutputStore.plan(ss.num, persist_path=persist, perm=perm)
     ui.psection("Performing Alignments")
     if not cfg.no_device:
-        # TPU-or-prompt, the fallback semantics of cuda_device_init
-        # (reference src/interface/seqalign_cuda.c:48-69); -F auto-confirms.
+        # GPU-or-prompt, like cuda_device_init (reference
+        # src/interface/seqalign_cuda.c:48-69), except that -F never
+        # confirms the CPU: a scripted run without a GPU fails instead of
+        # quietly aligning on the host.  -C or a typed "y" runs on the CPU.
         import jax
 
-        if all(d.platform != "tpu" for d in jax.devices()):
-            ui.pwarn("No TPU device found")
-            if not ui.print_Yn("Do you want to use the CPU instead?"):
-                ui.perr("Failed to initialize TPU device")
+        if all(d.platform != "gpu" for d in jax.devices()):
+            if ui.state.force or not ui.print_yN(
+                "No GPU device found. Do you want to use the CPU instead?"
+            ):
+                ui.perr("No GPU device found")
                 return 1
             cfg.no_device = True
     gaps = (cfg.gap_pen, cfg.gap_opn, cfg.gap_ext)
     engine = Engine(
         cfg.algo, cfg.matrix.matrix, gaps,
-        device_kind="cpu" if cfg.no_device else "auto",
+        device_kind="cpu" if cfg.no_device else "gpu",
+    )
+    dev = engine.mesh.devices.flat[0]
+    bench.note_device(
+        f"{dev.platform} {dev.device_kind} x{engine.ndev} "
+        f"({engine.scorer} scorer)"
     )
     if cfg.checkpoint and store is not None:
         # Journal creation needs the ENGINE (the fingerprint binds the

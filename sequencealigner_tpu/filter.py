@@ -8,12 +8,13 @@ strictly in file order (the reference's OpenMP version races on lost[] and is
 only nondeterministically close to this; SURVEY.md §5 fixes keep-first-in-file-
 order as the spec).  The division is performed in float32 like the C code.
 
-TPU-first:
-- **MXU match counting.**  Positional identity over characters is a dot
-  product of one-hot encodings: counts = OH_i · OH_j^T with OH = (rows,
-  L x 24) int8 (pad positions get the all-zero vector, so pad never
-  matches).  One (block, L*24) x (L*24, seg) int8 matmul replaces the VPU
-  eq+reduce — ~150x on the counting itself.
+Design:
+- **Match counting as a matrix product.**  Positional identity over
+  characters is a dot product of one-hot encodings: counts = OH_i · OH_j^T
+  with OH = (rows, L x 24) (pad positions get the all-zero vector, so pad
+  never matches).  One (block, L*24) x (L*24, seg) bf16 product with an f32
+  accumulator replaces an elementwise eq+reduce; it is exact, because the
+  inputs are 0/1 and counts <= L <= 2^14.
 - **Device-reduced prior verdicts, segment batching.**  Candidates are
   processed in SEGMENTS of several blocks per dispatch; the comparison
   against every PRIOR row is reduced on-device against the current kept
@@ -42,8 +43,7 @@ import numpy as np
 from . import ui
 from .io.input import SequenceSet
 
-#: Blocks per dispatch segment: larger segments amortize host round trips
-#: (the n=100k filter was ~98% link latency at one block per dispatch).
+#: Blocks per dispatch segment: larger segments amortize host round trips.
 SEG_BLOCKS = 8
 
 #: One-hot bytes budget for a candidate segment (bounds the (S, lmax*24)
@@ -65,8 +65,8 @@ def _filter_segment(cols, collens, kept, thr, j0, *bargs, block):
     S, lmax = cols.shape
 
     def onehot_flat(rows):
-        # bf16: guarantees the MXU path; counts <= L <= 2^14 are exact in
-        # the f32 accumulator.  -1 codes (pad) one-hot to the zero vector.
+        # bf16 0/1 inputs: counts <= L <= 2^14 are exact in the f32
+        # accumulator.  -1 codes (pad) one-hot to the zero vector.
         oh = jax.nn.one_hot(rows, 24, dtype=jnp.bfloat16)  # (r, L, 24)
         return oh.reshape(rows.shape[0], rows.shape[1] * 24)
 
@@ -101,9 +101,8 @@ def _filter_segment(cols, collens, kept, thr, j0, *bargs, block):
             )
             return k | jnp.any(prior, axis=0), None
 
-        # Static full scan with the per-row (orig < j0) mask: a dynamic
-        # fori bound measured 13x SLOWER (465 vs 35 s at n=100k) — XLA
-        # pipelines the fixed-trip scan, not the dynamic loop.
+        # Static full scan with the per-row (orig < j0) mask: a fixed-trip
+        # scan rather than a loop with a dynamic bound.
         i0s = jnp.arange(codes_b.shape[0] // block, dtype=jnp.int32) * block
         killed, _ = jax.lax.scan(body, killed, i0s)
 

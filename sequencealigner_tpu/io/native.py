@@ -1,10 +1,11 @@
 """ctypes loader for the native parser library (native/fastparse.c).
 
-The C library is compiled on demand into the user cache directory (this
-package ships as source; pybind11 is deliberately avoided — plain C ABI +
-ctypes keeps the toolchain requirement to just a C compiler).  Any failure —
-no compiler, unwritable cache — silently falls back to the pure-Python
-parsers, which are the semantic reference.  Disable with
+The C library is compiled with gcc on demand from the tracked sources into
+``build/`` at the repository root (gitignored; this package ships as
+source; pybind11 is deliberately avoided — plain C ABI + ctypes keeps the
+toolchain requirement to just a C compiler).  Any failure — no compiler,
+unwritable directory — silently falls back to the pure-Python parsers,
+which are the semantic reference.  Disable with
 SEQALIGN_TPU_NATIVE=0.
 """
 
@@ -56,16 +57,11 @@ def _build_lib(src: Path, extra_flags: tuple[str, ...] = ()) -> ctypes.CDLL | No
     tag = hashlib.sha256(src.read_bytes()).hexdigest()[:16]
     if "-march=native" in extra_flags:
         tag += "-" + _host_isa_tag()
-    cache = Path(
-        os.environ.get(
-            "SEQALIGN_TPU_CACHE",
-            os.path.expanduser("~/.cache/sequencealigner-tpu"),
-        )
-    )
+    cache = _NATIVE_DIR.parent / "build"
     so = cache / f"lib{src.stem}-{tag}.so"
     if not so.exists():
         cache.mkdir(parents=True, exist_ok=True)
-        tmp = so.with_suffix(".so.tmp")
+        tmp = so.with_name(f"{so.name}.{os.getpid()}.tmp")
         subprocess.run(
             ["gcc", "-O3", "-shared", "-fPIC", *extra_flags,
              "-o", str(tmp), str(src)],

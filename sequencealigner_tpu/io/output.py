@@ -6,7 +6,7 @@ full N x N when it fits in 3/4 of available RAM, else packed triangular
 util/macros.h:13, output.c:35-41, 68-84); a temp-file-backed array when even
 that exceeds RAM (disk spill, not checkpointing).  The reference also gates
 "full" on GPU memory (cuda_memory) — unnecessary here: scores stream back from
-the TPU per block, the device never holds the N^2 matrix.
+the device per block, the device never holds the N^2 matrix.
 """
 
 from __future__ import annotations
@@ -35,9 +35,8 @@ class OutputStore:
         # flushes in combo-ordered streams whose sorted positions ascend
         # monotonically, so in this layout every flush is a run of strictly
         # ascending offsets: sequential page writes into the cold memmap (the
-        # TPU-scale analogue of the reference's column-sequential fills,
-        # src/io/output.c:68-84) instead of the ~10 k pairs/s random scatter
-        # measured at the 1M-seq rehearsal.  All reads translate through the
+        # analogue of the reference's column-sequential fills,
+        # src/io/output.c:68-84) instead of a random scatter.  All reads translate through the
         # inverse permutation, so the public API stays in original indices.
         self.perm = None
         self.pos = None
@@ -109,8 +108,8 @@ class OutputStore:
             i = np.ascontiguousarray(i)
             j = np.ascontiguousarray(j)
         # On few-core hosts NumPy's vectorized scatter beats the scalar
-        # OpenMP loop (measured 15.9 vs 2.0 M pairs/s on a 1-core box);
-        # the native path wins once threads can share the work.
+        # OpenMP loop; the native path wins once threads can share the
+        # work.
         use_native = (os.cpu_count() or 1) > 2
         if self.triangular:
             if not (use_native and native.fill_pairs_tri(self.matrix, i, j, s)):
@@ -171,8 +170,7 @@ class OutputStore:
         spill layout: returns (target_rows, block) where block[t] is the
         full square-matrix row of ORIGINAL index target_rows[t], built from
         sorted rows s0 <= s < s1 of the packed triangle with two streaming
-        reads (VERDICT r4 task 7 — the per-output-row gather did one random
-        cold-memmap access per CELL):
+        reads:
 
         - the window's own packed rows: ONE contiguous slice
           [tri(s0), tri(s1));

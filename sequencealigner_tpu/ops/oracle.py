@@ -1,6 +1,6 @@
 """NumPy reference implementations of the three DP recurrences.
 
-These are the correctness oracle for the TPU kernels: straightforward
+These are the correctness oracle for the device scorers: straightforward
 row-major table fills implementing exactly the reference semantics
 (Needleman-Wunsch linear gap: /root/reference/src/bio/method/nw.c:21-41;
 Gotoh global affine: ga.c:26-67; Smith-Waterman local affine: sw.c:26-61).

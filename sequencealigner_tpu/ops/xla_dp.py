@@ -1,11 +1,13 @@
 """Batched anti-diagonal wavefront DP in pure XLA (jax.numpy + lax.scan).
 
-TPU-first design: instead of the reference's one-scalar-DP-per-thread scheme
-(CPU: /root/reference/src/bio/align.c:44-60, CUDA thread-per-pair:
+The plain reference scorer: the CPU engine's scorer and the GPU kernel's
+reference (ops/gpu_dp.py is compared against it for equality).  Instead of
+the reference's one-scalar-DP-per-thread scheme (CPU:
+/root/reference/src/bio/align.c:44-60, CUDA thread-per-pair:
 src/bio/kernels.cu:32-221), a whole *block* of B sequence pairs is aligned at
 once.  The DP table of every pair is swept along anti-diagonals d = r + c; all
 cells on a diagonal are independent, so each scan step updates a dense
-(B, K) tile on the VPU with no horizontal-dependency stalls.
+(B, K) array with no horizontal-dependency stalls.
 
 Key ideas:
 
@@ -15,11 +17,10 @@ Key ideas:
   sw.c:21-31) emerge automatically from the same interior recurrence, so the
   scan body has no special cases.
 
-- **MXU substitution lookup.**  Per-cell LUT gathers (SUB_MAT[c1][c2]) do not
-  vectorise on a VPU.  Instead the full substitution-score grid of each pair
-  is built with one-hot matmuls on the MXU (exact: the scores are small
-  integers, representable in f32), then pre-skewed so that scan step d reads
-  its diagonal as a contiguous (B, K) slice.
+- **Integer substitution lookup.**  The substitution-score grid of each pair
+  is gathered from the padded table with integer indices (exact by
+  construction, no floating point), then pre-skewed so that scan step d
+  reads its diagonal as a contiguous (B, K) slice.
 
 - **Masked length handling.**  Pairs inside a block may have different true
   lengths (l1, l2) below the padded (Lc, Lk).  Pad positions use index PAD
@@ -66,14 +67,9 @@ def _skewed_score_grid(s1, s2, sub_p, Lc, Lk):
     B = s1.shape[0]
     K = Lk + 1
     D = Lc + Lk
-    f32 = jnp.float32
 
-    # Substitution grid via MXU one-hot contraction (exact for small ints).
-    oh1 = jax.nn.one_hot(s1, PAD + 1, dtype=f32)  # (B, Lc, 25)
-    oh2 = jax.nn.one_hot(s2, PAD + 1, dtype=f32)  # (B, Lk, 25)
-    prof2 = jnp.einsum("bkc,cd->bkd", oh2, sub_p.astype(f32))  # (B, Lk, 25)
-    sub0 = jnp.einsum("bkd,bcd->bkc", prof2, oh1, preferred_element_type=f32)
-    sub0 = sub0.astype(jnp.int32)  # (B, Lk, Lc):  sub[s2[k0], s1[c0]]
+    # Substitution grid by an integer table gather: exact by construction.
+    sub0 = sub_p[s2[:, :, None], s1[:, None, :]]  # (B, Lk, Lc)
 
     # G[b, k, c0] = sub0[b, k-1, c0] for k>=1; extra zero column at c0 = Lc
     # gives invalid diagonal slots a harmless 0.
@@ -189,8 +185,8 @@ def align_block_streamed(
 ):
     """align_block for LONG sequences: the skewed score grid is never
     materialized (O(Lc*Lk) memory per pair); instead each scan step over
-    diagonal chunks builds its (CD, B, K) slab from an s1 window via the
-    MXU one-hot trick.  This removes any practical sequence-length cap —
+    diagonal chunks gathers its (CD, B, K) slab from an s1 window and the
+    pair's row profiles.  This removes any practical sequence-length cap —
     the reference's GPU path gives up at 1023 chars
     (/root/reference/src/bio/kernels.cuh:10); here memory is O(B*(Lc+Lk)).
     """
@@ -198,14 +194,12 @@ def align_block_streamed(
     K = Lk + 1
     sm = jnp.int32(SCORE_MIN)
     gap, opn, ext = gaps[0], gaps[1], gaps[2]
-    f32 = jnp.float32
 
     # Row profiles, reversed so row rk = K-1-k skews by exactly rk (flat
     # trick): prof_rev[b, rk, a] = sub_p[s2[b, K-2-rk], a]; rk = K-1 (k=0)
     # is the PAD profile (all BIG_NEG).
     s2e = jnp.pad(s2, ((0, 0), (1, 0)), constant_values=PAD)  # adds k=0 slot
-    oh2 = jax.nn.one_hot(s2e[:, ::-1], PAD + 1, dtype=f32)  # (B, K, 25)
-    prof_rev = jnp.einsum("bka,ac->bkc", oh2, sub_p.astype(f32))  # (B, K, 25)
+    prof_rev = sub_p[s2e[:, ::-1]]  # (B, K, 25)
 
     # s1 padded so every window index is in range: window for chunk c0 covers
     # original columns [c0 - Lk, c0 + CD - 1).
@@ -224,10 +218,9 @@ def align_block_streamed(
 
     def chunk(carry, c0):
         win = jax.lax.dynamic_slice_in_dim(s1e, c0, W, axis=1)  # (B, W)
-        oh1 = jax.nn.one_hot(win, PAD + 1, dtype=f32)  # (B, W, 25)
-        slab = jnp.einsum(
-            "bka,bwa->bkw", prof_rev, oh1, preferred_element_type=f32
-        ).astype(jnp.int32)  # (B, K, W): row rk, window col w
+        slab = jnp.take_along_axis(
+            prof_rev, jnp.broadcast_to(win[:, None, :], (B, K, W)), axis=2
+        )  # (B, K, W): row rk, window col w
         # Diagonal extraction: sk[j, b, k] = slab[b, rk, j + rk] (rk = K-1-k)
         # via pad + flat-reshape (left-shift row rk by rk), then reverse k.
         a = jnp.pad(slab.reshape(B, K * W), ((0, 0), (0, K)))

@@ -2,11 +2,11 @@
 
 The reference is strictly single-process / single-GPU (SURVEY.md §2.7:
 ``cudaSetDevice(0)`` hardcoded, seqalign_cuda.c:65).  This module is the
-TPU-native scale-out it never had, per the SURVEY plan: the schedule's
+scale-out it never had, per the SURVEY plan: the schedule's
 superblock stream is deterministically striped across hosts (pairs are
 sharded, never one DP matrix), each host scores its stripe on its local
 devices, and score triplets are merged with ``process_allgather`` over
-DCN so every host ends with the complete result.  No sequence data moves:
+the network so every host ends with the complete result.  No sequence data moves:
 inputs are replicated (every host parses the same file), only final scores
 (20 B/pair, packed — see pack_triplets) cross the network.
 
@@ -35,7 +35,7 @@ def init_from_env() -> tuple[int, int]:
     Env contract (same triple the standard launchers provide):
       SEQALIGN_TPU_COORDINATOR=host:port  SEQALIGN_TPU_NUM_PROCESSES=N
       SEQALIGN_TPU_PROCESS_ID=K — or rely on jax.distributed's own
-      auto-detection env (Cloud TPU metadata) by setting
+      auto-detection (a cluster launcher's environment) by setting
       SEQALIGN_TPU_DISTRIBUTED=1.
     """
     import jax
@@ -90,7 +90,7 @@ class TripletMerger:
 
     ``gather`` maps a host-local ndarray to a stacked (nhosts, ...) ndarray
     (injected in tests; defaults to jax.experimental.multihost_utils
-    process_allgather over DCN).  Two collectives per merge: a fixed-shape
+    process_allgather over the network).  Two collectives per merge: a fixed-shape
     word-count exchange, then ONE packed payload gather (pack_triplets).
     """
 

@@ -4,7 +4,7 @@ The reference enumerates the N(N-1)/2 pair space linearly and maps ids to
 (i, j) with a triangular-number bisection (d_find_j,
 /root/reference/src/bio/kernels.cu:17-30; packed index alignments(j)+i,
 util/macros.h:13).  We keep that bijection for storage, but *schedule* pairs
-by length bucket so each compiled TPU kernel shape runs densely padded blocks:
+by length bucket so each compiled kernel shape runs densely padded blocks:
 
 - sequences are sorted by length; each bucket is a contiguous range of the
   sorted order, padded to a quantized edge length
@@ -45,11 +45,9 @@ def linear_to_pair(ids: np.ndarray) -> tuple[np.ndarray, np.ndarray]:
     return i, j
 
 
-# Length edges: the column-sweep kernel pads rows to multiples of KB = 32
-# but columns only to multiples of 8, so edges need not be 32-multiples.
-# The short end stays COARSE: every extra edge multiplies bucket combos and
-# hence dispatches, and short-sequence runs are dispatch/host-bound (adding
-# a 48 edge measured a net e2e LOSS on the 1k-protein bench).  The long end
+# Length edges.  The short end stays COARSE: every extra edge multiplies bucket combos and
+# hence dispatches and compiled shapes, and short-sequence runs are
+# dispatch/host-bound.  The long end
 # gets intermediate edges (160, 320, 640): there device time dominates and
 # ~1.3x spacing cuts real padded work.
 DEFAULT_EDGES = (
@@ -175,8 +173,8 @@ class Block:
         return int((l1.astype(np.int64) * l2)[valid].sum())
 
     def select_valid(self, scores: np.ndarray) -> np.ndarray:
-        """The valid-pair slice of this block's score slots (linear blocks
-        put valid pairs first; tile blocks scatter them — see TileBlock)."""
+        """The valid-pair slice of this block's score slots (valid pairs
+        come first)."""
         return scores[: self.n_valid]
 
     def pairs(self) -> tuple[np.ndarray, np.ndarray, int]:
@@ -203,260 +201,11 @@ class Block:
         return self._pairs
 
 
-#: Outer-product tile geometry (must match ops.pallas_dp.S_TILE / LANE;
-#: asserted by the engine).  Kept as plain ints so the scheduler stays
-#: numpy-only.
-TILE_S = 128
-TILE_B = 128
-
-#: Slot ids per window in the diagonal-remainder subspace (diag_blocks):
-#: the triangle of one TILE_B-row window.
-TRI_W = TILE_B * (TILE_B - 1) // 2
-
-
-@dataclasses.dataclass
-class DiagBlock:
-    """One per-pair dispatch's worth of DIAGONAL-REMAINDER pairs of a
-    same-bucket combo under the tile schedule (see Schedule.diag_blocks).
-    Slot id t -> window u = t // TRI_W, local triangle id loc = t - u*TRI_W,
-    (rk, rc) = u*TILE_B + linear_to_pair(loc).  Tail-window slots whose rows
-    exceed the bucket count are invalid (masked here, clamped on device).
-    The packed-triangular STORAGE bijection (reference util/macros.h:13) is
-    unchanged — only the schedule geometry differs."""
-
-    edge: int
-    bucket: int
-    start: int  # first diag-subspace slot id
-    width: int  # padded slot count (multiple of the lane width)
-    sched: "Schedule" = dataclasses.field(repr=False)
-    _arr: tuple | None = dataclasses.field(
-        default=None, repr=False, compare=False
-    )
-    _pairs: tuple | None = dataclasses.field(
-        default=None, repr=False, compare=False
-    )
-    _nv: int | None = dataclasses.field(
-        default=None, repr=False, compare=False
-    )
-
-    @property
-    def Lc(self) -> int:
-        return self.edge
-
-    @property
-    def Lk(self) -> int:
-        return self.edge
-
-    def arrays(self) -> tuple:
-        """(orig_i, orig_j, l1, l2, valid) over all width slots."""
-        if self._arr is None:
-            sch = self.sched
-            ba = sch.buckets[self.bucket]
-            t = np.arange(self.start, self.start + self.width, dtype=np.int64)
-            u = t // TRI_W
-            loc = t - u * TRI_W
-            rk, rc = linear_to_pair(loc)  # local window triangle, rk < rc
-            rc = u * TILE_B + rc
-            rk = u * TILE_B + rk
-            nwin = -(-ba.count // TILE_B)
-            valid = (t < nwin * TRI_W) & (rc < ba.count)
-            rcc = np.minimum(rc, ba.count - 1)
-            rkk = np.minimum(rk, ba.count - 1)
-            ok = sch.order[ba.start + rkk]
-            oc = sch.order[ba.start + rcc]
-            oi = np.minimum(ok, oc).astype(np.int64)
-            oj = np.maximum(ok, oc).astype(np.int64)
-            l1 = sch.lengths_sorted[ba.start + rcc].astype(np.int32)
-            l2 = sch.lengths_sorted[ba.start + rkk].astype(np.int32)
-            self._arr = (oi, oj, l1, l2, valid)
-        return self._arr
-
-    orig_i = property(lambda self: self.arrays()[0])
-    orig_j = property(lambda self: self.arrays()[1])
-    l1 = property(lambda self: self.arrays()[2])
-    l2 = property(lambda self: self.arrays()[3])
-    valid = property(lambda self: self.arrays()[4])
-
-    @property
-    def n_valid(self) -> int:
-        """Analytic (no 16k-slot array materialization — this is read on the
-        MAIN thread during scheduling): slot t of window u is valid iff its
-        local triangle id < tri(m_u), m_u = clip(count - u*TILE_B, 0, TILE_B)
-        — j(loc) is nondecreasing in loc, so validity is a prefix."""
-        if self._nv is None:
-            count = self.sched.buckets[self.bucket].count
-            lo, hi = self.start, self.start + self.width
-            total = 0
-            for u in range(lo // TRI_W, (hi - 1) // TRI_W + 1):
-                m = min(TILE_B, count - u * TILE_B)
-                if m < 2:
-                    continue
-                tri = m * (m - 1) // 2
-                a = max(lo - u * TRI_W, 0)
-                b = min(hi - u * TRI_W, TRI_W)
-                if a < tri:
-                    total += min(b, tri) - a
-            self._nv = total
-        return self._nv
-
-    @property
-    def cells(self) -> int:
-        _, _, l1, l2, valid = self.arrays()
-        return int((l1.astype(np.int64) * l2)[valid].sum())
-
-    def select_valid(self, scores: np.ndarray) -> np.ndarray:
-        """Valid-slot scores (tail-window invalid slots are interspersed,
-        so selection is by mask, like TileBlock)."""
-        return scores[self.arrays()[4]]
-
-    def pairs(self) -> tuple[np.ndarray, np.ndarray, int]:
-        if self._pairs is None:
-            oi, oj, _, _, valid = self.arrays()
-            self._pairs = (oi[valid], oj[valid], self.cells)
-        return self._pairs
-
-
-@dataclasses.dataclass
-class TileBlock:
-    """One OUTER-PRODUCT tile: TILE_S consecutive c-side bucket rows crossed
-    with one contiguous TILE_B-lane window of k-side bucket rows (the
-    zero-gather schedule for ops.pallas_dp.align_outer).  The kernel computes
-    the full rectangle; validity — tail rows/lanes past the bucket counts and
-    the k<c triangle constraint of same-bucket combos — is applied here, on
-    the host, when slicing scores out of the dispatch buffer.
-
-    Covers the same pair space as the linear-id Blocks (the packed-triangular
-    bijection of /root/reference/src/util/macros.h:13 is still used for
-    STORAGE); only the schedule geometry differs."""
-
-    Lc: int
-    Lk: int
-    bucket_c: int
-    bucket_k: int
-    c0: int  # first combo-local c row of the tile
-    kt: int  # k-tile index: lane window [kt*TILE_B, (kt+1)*TILE_B)
-    width: int  # TILE_S * TILE_B score slots (row-major: c-row, then lane)
-    n_valid: int
-    sched: "Schedule" = dataclasses.field(repr=False)
-    _arr: tuple | None = dataclasses.field(
-        default=None, repr=False, compare=False
-    )
-    _pairs: tuple | None = dataclasses.field(
-        default=None, repr=False, compare=False
-    )
-
-    @property
-    def desc(self) -> tuple[int, int]:
-        """The (c-row, k-tile) descriptor the device dispatch ships."""
-        return (self.c0, self.kt)
-
-    def arrays(self) -> tuple:
-        """(orig_i, orig_j, l1, l2, valid) over all width slots.  Interior
-        tiles (n_valid == width: no tail rows/lanes, no diagonal constraint
-        — the vast majority at scale) skip the mask arithmetic; valid is
-        None for them and every slot is a pair."""
-        if self._arr is None:
-            sch = self.sched
-            ba = sch.buckets[self.bucket_k]
-            bb = sch.buckets[self.bucket_c]
-            full = self.n_valid == self.width
-            rc = np.repeat(
-                np.arange(self.c0, self.c0 + TILE_S, dtype=np.int64), TILE_B
-            )
-            rk = np.tile(
-                np.arange(self.kt * TILE_B, (self.kt + 1) * TILE_B,
-                          dtype=np.int64),
-                TILE_S,
-            )
-            if full:
-                valid = None
-                rcc, rkk = rc, rk
-            else:
-                valid = (rc < bb.count) & (rk < ba.count)
-                if self.bucket_k == self.bucket_c:
-                    valid &= rk < rc
-                rcc = np.minimum(rc, bb.count - 1)
-                rkk = np.minimum(rk, ba.count - 1)
-            ok = sch.order[ba.start + rkk]
-            oc = sch.order[bb.start + rcc]
-            oi = np.minimum(ok, oc).astype(np.int64)
-            oj = np.maximum(ok, oc).astype(np.int64)
-            l1 = sch.lengths_sorted[bb.start + rcc].astype(np.int32)
-            l2 = sch.lengths_sorted[ba.start + rkk].astype(np.int32)
-            self._arr = (oi, oj, l1, l2, valid)
-        return self._arr
-
-    orig_i = property(lambda self: self.arrays()[0])
-    orig_j = property(lambda self: self.arrays()[1])
-    l1 = property(lambda self: self.arrays()[2])
-    l2 = property(lambda self: self.arrays()[3])
-
-    @property
-    def valid(self):
-        v = self.arrays()[4]
-        return slice(None) if v is None else v
-
-    @property
-    def cells(self) -> int:
-        """Analytic true-cell count: tiles-v2 rectangles have no diagonal
-        masking (same-bucket tiles start at the NEXT window), so cells =
-        (sum of c-side lengths) x (sum of k-side lengths) over the clipped
-        row/lane ranges — two prefix-sum lookups, no slot arrays."""
-        sch = self.sched
-        ba = sch.buckets[self.bucket_k]
-        bb = sch.buckets[self.bucket_c]
-        ps = sch.length_psums()
-        pc, pk = ps[self.bucket_c], ps[self.bucket_k]
-        chi = min(self.c0 + TILE_S, bb.count)
-        klo = self.kt * TILE_B
-        khi = min(klo + TILE_B, ba.count)
-        if chi <= self.c0 or khi <= klo:
-            return 0
-        return int((pc[chi] - pc[self.c0]) * (pk[khi] - pk[klo]))
-
-    def select_valid(self, scores: np.ndarray) -> np.ndarray:
-        """Valid-pair scores of a tile: selected by the mask (tail rows and
-        lanes past the bucket counts, and the k >= c half of same-bucket
-        diagonal tiles, are computed by the kernel but discarded here);
-        interior tiles pass through unsliced."""
-        v = self.arrays()[4]
-        return scores if v is None else scores[v]
-
-    def pairs(self) -> tuple[np.ndarray, np.ndarray, int]:
-        """(orig_i, orig_j, cells) over the VALID slots only."""
-        if self._pairs is None:
-            oi, oj, _, _, valid = self.arrays()
-            if valid is None:
-                self._pairs = (oi, oj, self.cells)
-            else:
-                self._pairs = (oi[valid], oj[valid], self.cells)
-        return self._pairs
-
-
 @dataclasses.dataclass
 class Schedule:
     order: np.ndarray  # sorted-by-length permutation: order[s] = original index
     buckets: list[Bucket]
     lengths_sorted: np.ndarray
-    _psums: list | None = dataclasses.field(
-        default=None, repr=False, compare=False
-    )
-
-    def length_psums(self) -> list:
-        """Per-bucket prefix sums of sorted lengths (int64): psums[b][r] =
-        sum of the first r lengths of bucket b — O(1) analytic cell counts
-        for tile blocks."""
-        if self._psums is None:
-            self._psums = [
-                np.concatenate((
-                    [0],
-                    np.cumsum(
-                        self.lengths_sorted[b.start : b.end], dtype=np.int64
-                    ),
-                ))
-                for b in self.buckets
-            ]
-        return self._psums
 
     @classmethod
     def build(cls, lengths: np.ndarray, edges=DEFAULT_EDGES) -> "Schedule":
@@ -475,11 +224,10 @@ class Schedule:
         # (hence dispatches and compiled shapes), and a handful of sequences
         # in their own bucket cost more in per-combo overhead than their
         # extra padding in the next bucket does.  Beyond the hard floor, a
-        # bucket under two tile windows merges whenever the next edge is at
-        # most 2x its own: the outer kernel truncates DP columns at the true
-        # c-row length, so the merge penalty is only the k-side band
-        # padding on the merged rows (bounded by the edge ratio), while the
-        # saved combo row costs real dispatches on every run.
+        # bucket under 256 rows merges whenever the next edge is at most 2x
+        # its own: the GPU kernel sweeps each pair only to its true lengths,
+        # so the merge penalty is bounded by the edge ratio, while the saved
+        # combo row costs real dispatches on every run.
         min_count = max(64, len(order) // 64)
         merged: list[Bucket] = []
         for b in buckets:
@@ -525,26 +273,17 @@ class Schedule:
 
     def blocks(
         self, a: int, b: int, width: int | None = None,
-        target_cells: int = TARGET_CELLS, tail_min: int | None = None,
+        target_cells: int = TARGET_CELLS,
     ) -> Iterator[Block]:
-        """Lazy blocks for combo (a <= b).  Pairs are (i_sorted from bucket a,
-        j_sorted from bucket b); within-bucket (a == b) uses the triangle.
-
-        tail_min: when set, the tail of the combo is covered by SHRINKING
-        power-of-two-multiple-of-tail_min widths instead of one full-width
-        padded block (a 262k-wide superblock over a 66k tail wastes 75% of
-        its padded cells otherwise); widths stay in the pow2 compile set."""
+        """Lazy blocks for combo (a <= b), all of one width (one compiled
+        shape per combo; the last block is padded).  Pairs are (i_sorted
+        from bucket a, j_sorted from bucket b); within-bucket (a == b) uses
+        the triangle."""
         ba, bb = self.buckets[a], self.buckets[b]
         Lk, Lc = ba.edge, bb.edge
-        B = width or block_width(Lc, Lk, target_cells)
+        w = width or block_width(Lc, Lk, target_cells)
         npairs = self.combo_pair_count(a, b)
-        s0 = 0
-        w = B
-        while s0 < npairs:
-            need = npairs - s0
-            if tail_min and need < w:
-                units = -(-need // tail_min)
-                w = min(w, tail_min << max(0, (units - 1).bit_length()))
+        for s0 in range(0, npairs, w):
             yield Block(
                 Lc=Lc,
                 Lk=Lk,
@@ -552,60 +291,6 @@ class Schedule:
                 bucket_c=b,
                 bucket_k=a,
                 width=w,
-                n_valid=min(w, need),
+                n_valid=min(w, npairs - s0),
                 sched=self,
             )
-            s0 += w
-
-    def tiles(self, a: int, b: int) -> Iterator[TileBlock]:
-        """Lazy OUTER-PRODUCT tiles for combo (a <= b): for each TILE_B-lane
-        window of bucket a's rows, TILE_S-row chunks of bucket b's rows.
-        Same-bucket combos emit ONLY the fully-below-diagonal rectangles
-        (c-rows start at the NEXT window): the per-window diagonal triangles
-        — which a tile could only cover half-valid, ~12.5% discarded compute
-        at a 1k-sequence single-bucket space — are scheduled separately
-        through the per-pair path (diag_blocks).  Tiles with zero valid
-        pairs are skipped."""
-        ba, bb = self.buckets[a], self.buckets[b]
-        Lk, Lc = ba.edge, bb.edge
-        same = a == b
-        ntk = -(-ba.count // TILE_B)
-        for kt in range(ntk):
-            lanes = min(TILE_B, ba.count - kt * TILE_B)
-            c_lo = (kt + 1) * TILE_B if same else 0
-            for c0 in range(c_lo, bb.count, TILE_S):
-                nv = min(TILE_S, bb.count - c0) * lanes
-                if nv == 0:
-                    continue
-                yield TileBlock(
-                    Lc=Lc, Lk=Lk, bucket_c=b, bucket_k=a, c0=c0, kt=kt,
-                    width=TILE_S * TILE_B, n_valid=nv, sched=self,
-                )
-
-    def diag_blocks(
-        self, a: int, width: int, tail_min: int | None = None,
-    ) -> Iterator["DiagBlock"]:
-        """The DIAGONAL remainder of same-bucket combo (a, a) under the tile
-        schedule: each TILE_B-row window's own triangle, enumerated in a
-        uniform per-window subspace of TRI_W = TILE_B*(TILE_B-1)/2 slot ids
-        (window u owns ids [u*TRI_W, (u+1)*TRI_W); tail windows carry
-        invalid tail slots, discarded by mask).  Dispatched through the
-        per-pair packed path with mode='diag' — near-zero padded compute
-        where a diagonal tile would discard half its slots."""
-        count = self.buckets[a].count
-        nwin = -(-count // TILE_B)
-        if count < 2:
-            return
-        total = nwin * TRI_W
-        s0 = 0
-        w = width
-        while s0 < total:
-            need = total - s0
-            if tail_min and need < w:
-                units = -(-need // tail_min)
-                w = min(w, tail_min << max(0, (units - 1).bit_length()))
-            yield DiagBlock(
-                edge=self.buckets[a].edge, bucket=a, start=s0, width=w,
-                sched=self,
-            )
-            s0 += w

@@ -1,6 +1,6 @@
 """Host-system helpers: memory probe, temp-file-backed arrays, thread config.
 
-TPU-native equivalents of the reference's system layer
+Equivalents of the reference's system layer
 (/root/reference/src/system/os.c): available_memory from /proc/meminfo
 MemAvailable (os.c:269-284), temp-file-backed mmap for beyond-RAM result
 matrices (os.c:110-139), and the -T thread-count knob (os.c:462-495).

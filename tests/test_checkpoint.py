@@ -248,12 +248,11 @@ def test_sync_interval_batches_commits(tmp_path, monkeypatch):
     np.testing.assert_array_equal(m1, m2)
 
 
-def test_tile_schedule_kill_resume(tmp_path, monkeypatch):
-    """Kill/resume under the OUTER-TILE schedule (schedule token tiles-v2):
-    the journal holds TileBlock and DiagBlock global indices; the resumed
-    run must skip committed blocks (take()'s journal.done branch) and
-    converge bit-exactly.  (VERDICT r4 weak 2: the tile-journal resume path
-    was untested.)"""
+def test_schedule_kill_resume(tmp_path, monkeypatch):
+    """Kill/resume under the linear superblock schedule (token linear-v1)
+    with a bucket of 140 rows and many small superblocks: the resumed run
+    must skip committed blocks (take()'s journal.done branch) and converge
+    bit-exactly."""
     from sequencealigner_tpu import engine as eng_mod
 
     monkeypatch.setattr(eng_mod, "FLUSH_PAIRS", 1500)  # force several commits
@@ -262,16 +261,13 @@ def test_tile_schedule_kill_resume(tmp_path, monkeypatch):
     seqs = [
         rng.choice(np.frombuffer(b"ARNDCQEGHILKMFPSTWYV", np.uint8),
                    int(rng.integers(10, 17)))
-        for _ in range(140)  # one bucket spanning two 128-row tile windows
+        for _ in range(140)
     ]
     ss = SequenceSet.from_list(seqs, M.lut)
     gaps = (0, -10, -1)
-    eng = Engine(
-        "ga", M.matrix, gaps, device_kind="cpu",
-        use_pallas=True, pallas_interpret=True,
-    )
+    eng = Engine("ga", M.matrix, gaps, device_kind="cpu", target_cells=1 << 14)
     token = eng.schedule_token(ss.lengths)
-    assert token.startswith("tiles-v2")
+    assert token.startswith("linear-v1")
     header = ckpt.config_fingerprint(
         algo="ga", gaps=gaps, matrix="blosum62", num_seqs=ss.num,
         lengths=ss.lengths, triangular=True, schedule=token,
@@ -307,17 +303,17 @@ def test_tile_schedule_kill_resume(tmp_path, monkeypatch):
 
 def test_schedule_mismatch_error_names_schedule(tmp_path):
     """A journal written under one schedule geometry must be rejected with
-    an error NAMING the schedule field (VERDICT r4 task 6)."""
+    an error NAMING the schedule field."""
     rng = np.random.default_rng(0)
     ss = _random_set(rng, 8)
     p = tmp_path / "run.ckpt"
     h1 = ckpt.config_fingerprint(
         algo="ga", gaps=(0, -10, -1), matrix="blosum62", num_seqs=ss.num,
-        lengths=ss.lengths, triangular=True, schedule="tiles-v1",
+        lengths=ss.lengths, triangular=True, schedule="linear-v1.0000aaaa",
     )
     ckpt.Journal(p, h1).close()
-    h2 = dict(h1, schedule="tiles-v2")
+    h2 = dict(h1, schedule="linear-v1.0000bbbb")
     with pytest.raises(ckpt.CheckpointError) as ei:
         ckpt.Journal(p, h2)
     msg = str(ei.value)
-    assert "schedule" in msg and "tiles-v1" in msg and "tiles-v2" in msg
+    assert "schedule" in msg and "0000aaaa" in msg and "0000bbbb" in msg

@@ -223,7 +223,7 @@ class TestOutputStore:
 
     def test_sorted_window_conversion_matches_rows(self, tmp_path):
         """The SEQUENTIAL tri->square converter for the sorted-coordinate
-        layout (rows_sorted_window, VERDICT r4 task 7) reproduces rows()
+        layout (rows_sorted_window) reproduces rows()
         exactly, both directly and through the HDF5 writer."""
         rng = np.random.default_rng(11)
         n = 137

@@ -1,7 +1,7 @@
 """Sharded multi-host output (parallel/shard_store.py): row partition,
 per-host stores, point-to-point routing, shard HDF5 + stitch — the
 config-5 architecture where NO host holds or transfers the full triplet
-set (VERDICT r4 task 5; storage bijection per reference util/macros.h:13).
+set.
 """
 
 import json
